@@ -1,7 +1,7 @@
-// Native host runtime for the TPU PHY framework.
+// Native host runtime for the batched PHY framework.
 //
 // The reference's runtime substrate is GNU Radio's C++ scheduler with
-// shared-memory ring buffers (SURVEY.md L0).  Here the TPU owns the DSP, and
+// shared-memory ring buffers (SURVEY.md L0).  Here the GPU owns the DSP, and
 // this library owns the host-side hot paths around it:
 //
 //   * an SPSC IQ ring buffer with overlap-save block reads (the ingest path

@@ -20,8 +20,8 @@ jax.config.update("jax_platforms", "cpu")
 
 def build_stream():
     import numpy as np
-    from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-    from gr_ieee80211_tpu.gold import tx, mac
+    from gr_ieee80211.spec.params import PhyConfig, Fmt
+    from gr_ieee80211.gold import tx, mac
 
     mpdu = mac.qos_data_frame(b"x" * 40, "02:00:00:00:00:01",
                               "02:00:00:00:00:02", "02:00:00:00:00:01", 1)
@@ -42,7 +42,7 @@ def main():
     mode = sys.argv[4] if len(sys.argv) > 4 else "sp"
     b_local = int(sys.argv[5]) if len(sys.argv) > 5 else 64
     n_dev = int(sys.argv[6]) if len(sys.argv) > 6 else 4
-    from gr_ieee80211_tpu.parallel import distributed as D
+    from gr_ieee80211.parallel import distributed as D
 
     D.bootstrap(f"localhost:{port}", num_processes=n_proc, process_id=pid,
                 local_device_count=n_dev)

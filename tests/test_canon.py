@@ -2,9 +2,9 @@
 programs, decode bit-identical to the exact-shape path."""
 import numpy as np
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-from gr_ieee80211_tpu.gold import tx, mac, channel
-from gr_ieee80211_tpu.models.rx import RxEngine, canonical_cfg
+from gr_ieee80211.spec.params import PhyConfig, Fmt
+from gr_ieee80211.gold import tx, mac, channel
+from gr_ieee80211.models.rx import RxEngine, canonical_cfg
 
 
 def test_ladder_collapses_shapes():

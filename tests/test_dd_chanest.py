@@ -9,11 +9,11 @@ on the first-pass syndrome total so clean high-SNR batches never pay for it.
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.spec import tables as T
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-from gr_ieee80211_tpu.gold import tx as gtx, mac, channel
-from gr_ieee80211_tpu.ops import ofdm as OF
-from gr_ieee80211_tpu.ops.cplx import CF
+from gr_ieee80211.spec import tables as T
+from gr_ieee80211.spec.params import PhyConfig, Fmt
+from gr_ieee80211.gold import tx as gtx, mac, channel
+from gr_ieee80211.ops import ofdm as OF
+from gr_ieee80211.ops.cplx import CF
 
 
 def _delay_channel(rng, ntaps=6):
@@ -75,8 +75,8 @@ def test_dd_pass_cuts_estimate_error(fmt, mcs):
 def test_dd_gate_both_branches_decode():
     """Gated chain smoke: clean batch (gate off) decodes everything; heavy
     -noise batch (gate on -> dd branch executes) returns sane counts."""
-    from gr_ieee80211_tpu.models import rx as RXM
-    from gr_ieee80211_tpu.ops.cplx import from_host
+    from gr_ieee80211.models import rx as RXM
+    from gr_ieee80211.ops.cplx import from_host
 
     rng = np.random.default_rng(11)
     payload = bytes(rng.integers(0, 256, 120, dtype=np.uint8))

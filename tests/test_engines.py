@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-from gr_ieee80211_tpu.gold import tx as gtx, mac, channel
-from gr_ieee80211_tpu.models.tx import TxEngine
-from gr_ieee80211_tpu.models.rx import RxEngine, dedup_triggers
+from gr_ieee80211.spec.params import PhyConfig, Fmt
+from gr_ieee80211.gold import tx as gtx, mac, channel
+from gr_ieee80211.models.tx import TxEngine
+from gr_ieee80211.models.rx import RxEngine, dedup_triggers
 
 
 CONFIGS = [(Fmt.L, 0, 1), (Fmt.L, 7, 1), (Fmt.HT, 4, 1), (Fmt.HT, 12, 2),
@@ -37,7 +37,7 @@ def test_tx_engine_matches_gold(fmt, mcs, nss):
 def test_rx_engine_snr_rssi_metadata(mcs, snr_set):
     """Device per-packet SNR/RSSI/sssnr0 vs gold and the injected AWGN level
     (the reference's sync-tag metadata, lib/sync_impl.cc:124-136)."""
-    from gr_ieee80211_tpu.gold import rx as grx
+    from gr_ieee80211.gold import rx as grx
     rng = np.random.default_rng(101)
     mpdu, payload, cfg = _mk(rng, Fmt.VHT, mcs, 1)
     wave = gtx.tx_waveform(cfg, payload, group_id=0, partial_aid=0)
@@ -82,8 +82,8 @@ def test_rx_engine_bf16_ingest_loopback():
 
 def test_tx_engine_mu_matches_gold():
     """Device-batched MU TX (tx_batch_mu) vs the gold MU waveform."""
-    from gr_ieee80211_tpu.spec.params import MuConfig
-    from gr_ieee80211_tpu.models.tx import TxEngine
+    from gr_ieee80211.spec.params import MuConfig
+    from gr_ieee80211.models.tx import TxEngine
     rng = np.random.default_rng(41)
     _, a0, _ = _mk(rng, Fmt.VHT, 4, 1, n=100)
     _, a1, _ = _mk(rng, Fmt.VHT, 2, 1, n=57)
@@ -155,7 +155,7 @@ def test_tx_engine_random_seeds_decode():
 
 def test_dedup_triggers_device_matches_host():
     import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops.frontend import dedup_triggers_device
+    from gr_ieee80211.ops.frontend import dedup_triggers_device
     c = np.array([100, 160, 660, 3000, 3560, 9000, -1, -1], dtype=np.int32)
     out = np.asarray(dedup_triggers_device(jnp.asarray(c), 5))
     assert out.tolist() == [100, 3000, 9000, -1, -1]
@@ -163,8 +163,8 @@ def test_dedup_triggers_device_matches_host():
 
 def test_rx_chain_count_fused():
     """Single-dispatch detect->sync->decode counting (the bench hot path)."""
-    from gr_ieee80211_tpu.models.rx import rx_chain_count
-    from gr_ieee80211_tpu.ops.cplx import from_host
+    from gr_ieee80211.models.rx import rx_chain_count
+    from gr_ieee80211.ops.cplx import from_host
     rng = np.random.default_rng(53)
     mpdu, payload, cfg = _mk(rng, Fmt.VHT, 7, 1)
     wave = gtx.tx_waveform(cfg, payload, group_id=0, partial_aid=0)
@@ -178,10 +178,10 @@ def test_rx_chain_count_fused():
 
 def test_rx_chain_count_chunked_matches():
     """chunk= decodes the synced batch in lax.scan chunks INSIDE the one
-    program (bounds the Viterbi decision-plane HBM for long trellises);
+    program (bounds the Viterbi decision-plane memory for long trellises);
     counts must match the unchunked program exactly."""
-    from gr_ieee80211_tpu.models.rx import rx_chain_count
-    from gr_ieee80211_tpu.ops.cplx import from_host
+    from gr_ieee80211.models.rx import rx_chain_count
+    from gr_ieee80211.ops.cplx import from_host
     rng = np.random.default_rng(53)
     mpdu, payload, cfg = _mk(rng, Fmt.VHT, 7, 1)
     wave = gtx.tx_waveform(cfg, payload, group_id=0, partial_aid=0)

@@ -2,16 +2,16 @@
 
 The claim under test: when the received hard bits form a codeword the
 algebraic inverse equals the data exactly; otherwise the fallback
-Viterbi tiers reproduce the pure Pallas path on every row (psdu region —
+Viterbi tiers reproduce the pure Viterbi path on every row (psdu region —
 traceback garbage past the tail may differ, as documented)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gr_ieee80211_tpu.gold import bits as GB
-from gr_ieee80211_tpu.ops import fastdecode as FD
-from gr_ieee80211_tpu.ops.viterbi_pallas import viterbi_decode_pallas
-from gr_ieee80211_tpu.ops import viterbi as VXLA
+from gr_ieee80211.gold import bits as GB
+from gr_ieee80211.ops import fastdecode as FD
+from gr_ieee80211.ops.viterbi_gpu import viterbi_decode
+from gr_ieee80211.ops import viterbi as VXLA
 
 RATES = ("1/2", "2/3", "3/4", "5/6")
 
@@ -53,13 +53,13 @@ def test_interior_and_tail_matrices_all_lengths():
 
 def test_tile_fallback_matches_pure_viterbi():
     """A few corrupted rows route through the fallback tile and match the
-    pure Pallas decode bit-for-bit on the non-tail region."""
+    pure Viterbi decode bit-for-bit on the non-tail region."""
     rng = np.random.default_rng(5)
     cr, T, B = "3/4", 600, 8
     flips = [0, 3, 0, 0, 7, 0, 0, 1]
     llr, data, _ = _llr_batch(rng, cr, T, B, flips_per_row=flips)
     out = np.asarray(FD.adaptive_decode(jnp.asarray(llr), cr, T, fallback=4))
-    pure = np.asarray(viterbi_decode_pallas(
+    pure = np.asarray(viterbi_decode(
         VXLA.depuncture(jnp.asarray(llr), cr, T)))
     assert np.array_equal(out[:, : T - 96], pure[:, : T - 96])
     # clean rows kept the algebraic answer
@@ -74,7 +74,7 @@ def test_full_fallback_when_over_capacity():
     flips = [2, 2, 2, 2, 2, 0]
     llr, data, _ = _llr_batch(rng, cr, T, B, flips_per_row=flips)
     out = np.asarray(FD.adaptive_decode(jnp.asarray(llr), cr, T, fallback=2))
-    pure = np.asarray(viterbi_decode_pallas(
+    pure = np.asarray(viterbi_decode(
         VXLA.depuncture(jnp.asarray(llr), cr, T)))
     assert np.array_equal(out, pure)
     # light corruption at strong |LLR|: Viterbi corrects it back to the data
@@ -96,7 +96,7 @@ def _canon_llr_batch(rng, cr, T_canon, n_reals, snr_garbage=True):
     LLR positions past the real kept count are random garbage (what a
     canonicalized bucket demodulates beyond the real packet end)."""
     B = len(n_reals)
-    from gr_ieee80211_tpu.ops.viterbi import depuncture_indices
+    from gr_ieee80211.ops.viterbi import depuncture_indices
     _, nk_canon = depuncture_indices(cr, T_canon)
     data = np.zeros((B, T_canon), np.uint8)
     llr = rng.normal(size=(B, nk_canon)).astype(np.float32) * 4.0
@@ -157,13 +157,13 @@ def test_tier_ladder_routes_mid_counts():
     flips = [3] * 6 + [0] * (B - 6)       # 6 failing rows, tiers (2, 8)
     llr, data, _ = _llr_batch(rng, cr, T, B, flips_per_row=flips)
     out = np.asarray(FD.adaptive_decode(jnp.asarray(llr), cr, T, fallback=2))
-    pure = np.asarray(viterbi_decode_pallas(
+    pure = np.asarray(viterbi_decode(
         VXLA.depuncture(jnp.asarray(llr), cr, T)))
     assert np.array_equal(out[:, : T - 96], pure[:, : T - 96])
     flips = [3] * 12 + [0] * (B - 12)     # 12 > 4*fallback -> full sweep
     llr, data, _ = _llr_batch(rng, cr, T, B, flips_per_row=flips)
     out = np.asarray(FD.adaptive_decode(jnp.asarray(llr), cr, T, fallback=2))
-    pure = np.asarray(viterbi_decode_pallas(
+    pure = np.asarray(viterbi_decode(
         VXLA.depuncture(jnp.asarray(llr), cr, T)))
     assert np.array_equal(out, pure)
 
@@ -171,7 +171,7 @@ def test_tier_ladder_routes_mid_counts():
 def test_windowed_redecode_matches_pure_viterbi():
     """Sparse hard errors across many rows route through the windowed
     tier (n_fail > row tile, n_dirty <= win tier) and reproduce the pure
-    Pallas decode bit-for-bit, including first/last-window errors (the
+    Viterbi decode bit-for-bit, including first/last-window errors (the
     state-0 pin and the zero-LLR tail)."""
     rng = np.random.default_rng(7)
     cr, T, B = "3/4", 1300, 32
@@ -184,14 +184,14 @@ def test_windowed_redecode_matches_pure_viterbi():
     # (128,) win tier must (B*nwin = 192 slots, dirty ~70)
     out = np.asarray(FD.adaptive_decode(x, cr, T, fallback=16,
                                         win_tiers=(128,)))
-    ref = np.asarray(viterbi_decode_pallas(
+    ref = np.asarray(viterbi_decode(
         jnp.asarray(VXLA.depuncture(x, cr, T))))
     assert np.array_equal(out, ref)
 
 
 def test_windowed_dirty_overflow_falls_back_full():
     """More dirty windows than the largest win tier -> full sweep, still
-    exact vs the pure Pallas decode."""
+    exact vs the pure Viterbi decode."""
     rng = np.random.default_rng(8)
     cr, T, B = "1/2", 1300, 16
     llr, data, Ns = _llr_batch(rng, cr, T, B)
@@ -200,7 +200,7 @@ def test_windowed_dirty_overflow_falls_back_full():
     x = jnp.asarray(llr.astype(np.float32))
     out = np.asarray(FD.adaptive_decode(x, cr, T, fallback=4,
                                         win_tiers=(128,)))
-    ref = np.asarray(viterbi_decode_pallas(
+    ref = np.asarray(viterbi_decode(
         jnp.asarray(VXLA.depuncture(x, cr, T))))
     assert np.array_equal(out, ref)
 

@@ -20,9 +20,9 @@ import sys
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-from gr_ieee80211_tpu.gold import mac, channel
-from gr_ieee80211_tpu.models.rx import RxEngine
+from gr_ieee80211.spec.params import PhyConfig, Fmt
+from gr_ieee80211.gold import mac, channel
+from gr_ieee80211.models.rx import RxEngine
 
 REF_TOOLS = "/root/reference/tools"
 pytestmark = pytest.mark.skipif(not os.path.isdir(REF_TOOLS),
@@ -84,7 +84,7 @@ def test_shipped_hw_captures_feedback_parity():
     |<v_ours, v_ref>| ~ 1)."""
     sys.path.insert(0, REF_TOOLS)
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "tools_tpu"))
+                                    "tools"))
     import phy80211header as p8h
     from cmu_offline import feedback_from_capture
     for u in range(2):

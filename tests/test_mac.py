@@ -1,8 +1,8 @@
 """MAC layer parity with reference mac80211 golden vectors."""
 import numpy as np
 
-from gr_ieee80211_tpu.gold import mac as M
-from gr_ieee80211_tpu.gold.bits import fcs_ok
+from gr_ieee80211.gold import mac as M
+from gr_ieee80211.gold.bits import fcs_ok
 
 
 def test_qos_data_frame(golden):
@@ -52,7 +52,7 @@ def test_ndp_announcement(golden):
 
 
 def test_deaggregate_with_eof_padding():
-    from gr_ieee80211_tpu.spec import tables as T
+    from gr_ieee80211.spec import tables as T
     mpdu = M.qos_data_frame(b"payload-bytes" * 5, "02:00:00:00:00:01",
                             "02:00:00:00:00:02", "02:00:00:00:00:01", 7)
     psdu = M.ampdu_aggregate_vht([mpdu])
@@ -61,7 +61,7 @@ def test_deaggregate_with_eof_padding():
 
 
 def test_parse_frame_roundtrips():
-    from gr_ieee80211_tpu.gold import mac
+    from gr_ieee80211.gold import mac
     payload = b"parser test payload"
     q = mac.qos_data_frame(payload, "f4:69:d5:80:0f:a0", "00:c0:ca:b1:5b:e1",
                            "f4:69:d5:80:0f:a0", 42)
@@ -90,7 +90,7 @@ def test_vht_bf_mgmt_frame_roundtrip():
     """Full compressed-BF action frame: V56 -> body -> frame -> parse -> V56
     (mac80211header genMgmtActVhtCompressBf/mgmtVhtActCompressBfParser)."""
     import numpy as np
-    from gr_ieee80211_tpu.gold import mac, sounding
+    from gr_ieee80211.gold import mac, sounding
     rng = np.random.default_rng(9)
     v56 = np.empty((56, 2, 2), complex)
     for k in range(56):
@@ -120,9 +120,9 @@ def test_beacon_capture_tx_rx_and_element_parse():
     """The reference's captured beacon (examples/beacon) transmits at
     L MCS0, decodes, and its elements parse (SSID, rates, DS param)."""
     import numpy as np
-    from gr_ieee80211_tpu.gold import mac, tx, channel
-    from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-    from gr_ieee80211_tpu.models.rx import RxEngine
+    from gr_ieee80211.gold import mac, tx, channel
+    from gr_ieee80211.spec.params import PhyConfig, Fmt
+    from gr_ieee80211.models.rx import RxEngine
     blob = bytes.fromhex(
         "80000000ffffffffffff244bfe6125ac244bfe6125acc0293e00f6ed6a0100006400"
         "1111000e636c6f75645f61633836755f354701088c129824b048606c050402030000"

@@ -1,7 +1,7 @@
 """Multi-chip sharding paths on the virtual 8-device CPU mesh.
 
 Covers the three scale-out programs in ``parallel.mesh``: packet-sharded
-decode (dp), time-sharded detection with ICI halo exchange (sp), and the
+decode (dp), time-sharded detection with ppermute halo exchange (sp), and the
 full end-to-end time-sharded RX chain (sp), asserting they reproduce the
 single-device results.
 """
@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-from gr_ieee80211_tpu.gold import tx as gtx, mac, channel
-from gr_ieee80211_tpu.parallel import mesh as M
-from gr_ieee80211_tpu.ops.cplx import from_host
+from gr_ieee80211.spec.params import PhyConfig, Fmt
+from gr_ieee80211.gold import tx as gtx, mac, channel
+from gr_ieee80211.parallel import mesh as M
+from gr_ieee80211.ops.cplx import from_host
 
 
 def _need_devices(n):
@@ -85,6 +85,6 @@ def test_frontend_sp_detects_across_boundaries():
     cand = cand.reshape(-1)
     cand = np.sort(cand[cand >= 0])
     # one candidate cluster per packet, at the packet start
-    from gr_ieee80211_tpu.models.rx import dedup_triggers
+    from gr_ieee80211.models.rx import dedup_triggers
     ded = dedup_triggers(cand)
     assert len(ded) == 6

@@ -3,10 +3,10 @@ batched NDP channel-estimate dispatch."""
 import numpy as np
 import jax.numpy as jnp
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt, MuConfig
-from gr_ieee80211_tpu.gold import tx, mac, channel, sounding
-from gr_ieee80211_tpu.models import rx as RXM
-from gr_ieee80211_tpu.ops.cplx import from_host
+from gr_ieee80211.spec.params import PhyConfig, Fmt, MuConfig
+from gr_ieee80211.gold import tx, mac, channel, sounding
+from gr_ieee80211.models import rx as RXM
+from gr_ieee80211.ops.cplx import from_host
 
 
 def _mu_stream(rng, n_pkts, h_sta):
@@ -68,7 +68,7 @@ def test_rx_chain_count_mu_rejects_wrong_mcs():
 
 def test_device_mu_tx_to_fused_mu_rx_loopback():
     """Full device loop: tx_batch_mu (device) -> ZF channel -> MU-STA chain."""
-    from gr_ieee80211_tpu.models.tx import TxEngine
+    from gr_ieee80211.models.tx import TxEngine
     rng = np.random.default_rng(14)
     h_sta = [(rng.normal(size=(1, 2)) + 1j * rng.normal(size=(1, 2)))
              / np.sqrt(2) for _ in range(2)]

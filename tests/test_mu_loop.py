@@ -4,8 +4,8 @@ Replicates the reference cmu_v3 control loop (tools/cmu_v3/cmu_ap.py) offline.
 """
 import numpy as np
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt, MuConfig
-from gr_ieee80211_tpu.gold import tx, rx, mac, channel, sounding
+from gr_ieee80211.spec.params import PhyConfig, Fmt, MuConfig
+from gr_ieee80211.gold import tx, rx, mac, channel, sounding
 
 
 def test_mu_closed_loop():
@@ -87,9 +87,9 @@ def test_zf_q_separates_users():
 
 
 def test_mu_engine_batched_rx():
-    """The batched TPU engine decodes MU downlink per STA position
+    """The batched device engine decodes MU downlink per STA position
     (demod(mupos,mugid) parity, lib/demod_impl.cc:28-40,344-505)."""
-    from gr_ieee80211_tpu.models.rx import RxEngine
+    from gr_ieee80211.models.rx import RxEngine
     rng = np.random.default_rng(77)
     h_sta = [(rng.normal(size=(1, 2)) + 1j * rng.normal(size=(1, 2))) / np.sqrt(2)
              for _ in range(2)]
@@ -205,19 +205,19 @@ def test_mu_closed_loop_compressed_feedback():
 
 
 def test_cmu_offline_tool_loop(tmp_path):
-    """cmu_v4 offline-analysis parity (tools_tpu/cmu_offline.py): saved
+    """cmu_v4 offline-analysis parity (tools/cmu_offline.py): saved
     LTF captures -> compressed feedback wire round trip -> ZF Q -> MU
     waveform, and each STA decodes its own stream from the artifact
     (reference: tools/cmu_v4/cmu_ap_offline.py)."""
     import subprocess, sys as _sys, os as _os
     import numpy as np
-    from gr_ieee80211_tpu.utils.io import read_cf32
-    from gr_ieee80211_tpu.gold import channel, mac
-    from gr_ieee80211_tpu.models.rx import RxEngine
+    from gr_ieee80211.utils.io import read_cf32
+    from gr_ieee80211.gold import channel, mac
+    from gr_ieee80211.models.rx import RxEngine
     c0, c1 = str(tmp_path / "c0.bin"), str(tmp_path / "c1.bin")
     out = str(tmp_path / "mu")
     env = dict(_os.environ, JAX_PLATFORMS="cpu")
-    r = subprocess.run([_sys.executable, "tools_tpu/cmu_offline.py",
+    r = subprocess.run([_sys.executable, "tools/cmu_offline.py",
                         "--demo", "--chan0", c0, "--chan1", c1,
                         "--out", out, "--mcs", "2"],
                        capture_output=True, text=True, env=env,

@@ -27,8 +27,8 @@ def test_two_process_chain_matches_single_process():
     # single-process reference on this process's 8 virtual devices
     sys.path.insert(0, os.path.dirname(__file__))
     from _multihost_worker import build_stream
-    from gr_ieee80211_tpu.parallel import mesh as M
-    from gr_ieee80211_tpu.ops.cplx import from_host
+    from gr_ieee80211.parallel import mesh as M
+    from gr_ieee80211.ops.cplx import from_host
 
     cfg, mpdu, stream, n_pkt = build_stream()
     mesh = M.make_mesh(8, axes=("sp",))

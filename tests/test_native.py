@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.runtime import native as N
-from gr_ieee80211_tpu.gold import mac, bits as B, tx as gtx, channel
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
+from gr_ieee80211.runtime import native as N
+from gr_ieee80211.gold import mac, bits as B, tx as gtx, channel
+from gr_ieee80211.spec.params import PhyConfig, Fmt
 
 pytestmark = pytest.mark.skipif(not N.available(), reason="no native toolchain")
 
@@ -30,7 +30,7 @@ def test_deagg_vht_matches_python():
                             "02:00:00:00:00:01", "02:00:00:00:00:02",
                             "02:00:00:00:00:01", 2)
     psdu = mac.ampdu_aggregate_vht([m1, m2])
-    from gr_ieee80211_tpu.spec import tables as T
+    from gr_ieee80211.spec import tables as T
     psdu += T.bits_to_bytes(T.VHT_EOF_BITS) * 2
     assert N.deagg_vht(psdu) == mac.ampdu_deaggregate(psdu) == [m1, m2]
 

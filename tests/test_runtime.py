@@ -3,9 +3,9 @@ import socket
 import time
 import numpy as np
 
-from gr_ieee80211_tpu.spec.params import Fmt
-from gr_ieee80211_tpu.gold import mac, rx as grx, channel, sounding
-from gr_ieee80211_tpu.runtime import udp_phy as U
+from gr_ieee80211.spec.params import Fmt
+from gr_ieee80211.gold import mac, rx as grx, channel, sounding
+from gr_ieee80211.runtime import udp_phy as U
 
 
 def _send(port, data):

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-from gr_ieee80211_tpu.gold import tx, rx, mac, channel
+from gr_ieee80211.spec.params import PhyConfig, Fmt
+from gr_ieee80211.gold import tx, rx, mac, channel
 
 
 def _mpdu(rng, n=200):
@@ -77,7 +77,7 @@ def test_ndp_detection_and_channel_export():
     assert p.is_ndp and p.ok
     assert p.ndp_chan.shape == (2, 2, 64)
     # estimate is the air channel up to a common scale and a linear phase ramp
-    from gr_ieee80211_tpu.spec import tables as T
+    from gr_ieee80211.spec import tables as T
     K = T.DATA_IDX_NL
     ratio = p.ndp_chan[0, 0, K] / h[0, 0]
     ph = np.unwrap(np.angle(ratio))

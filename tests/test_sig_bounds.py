@@ -3,9 +3,9 @@ mirroring the reference's plausibility bounds (lib/demod_impl.cc:158-199,
 lib/cloud80211phy.cc:730-771)."""
 import numpy as np
 
-from gr_ieee80211_tpu.spec import tables as T
-from gr_ieee80211_tpu.spec.params import Fmt, PhyConfig
-from gr_ieee80211_tpu.gold import sig as S
+from gr_ieee80211.spec import tables as T
+from gr_ieee80211.spec.params import Fmt, PhyConfig
+from gr_ieee80211.gold import sig as S
 
 
 def _with_crc(body34):
@@ -57,7 +57,7 @@ def test_vhtsigb_mu_tail_validated():
 def test_ht_lsig_budget_bound_classifier():
     """models.rx._classify rejects an HT-SIG whose nSym exceeds the L-SIG
     sample budget even though its CRC8 is valid."""
-    from gr_ieee80211_tpu.models.rx import RxEngine
+    from gr_ieee80211.models.rx import RxEngine
 
     eng = RxEngine(nrx=1)
     real = PhyConfig(Fmt.HT, 1, 1, 100)
@@ -75,7 +75,7 @@ def test_ht_lsig_budget_bound_classifier():
 
 def test_ht_lsig_budget_bound_gold():
     """gold.rx._rx_ht enforces the same budget."""
-    from gr_ieee80211_tpu.gold import rx as RX
+    from gr_ieee80211.gold import rx as RX
 
     class _Rx:  # minimal RxPacket stand-in
         ok = False

@@ -1,8 +1,8 @@
 """Spec-layer self-consistency + parity with reference-derived tables."""
 import numpy as np
 
-from gr_ieee80211_tpu.spec import tables as T
-from gr_ieee80211_tpu.gold import bits as B
+from gr_ieee80211.spec import tables as T
+from gr_ieee80211.gold import bits as B
 
 
 def test_pilot_polarity_matches_reference(golden):
@@ -132,8 +132,8 @@ def test_viterbi_tables_consistent_with_encoder():
 def test_viterbi_segmented_matches_monolithic():
     """Opt-in segmented (windowed) decode == monolithic at working SNR."""
     import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops.viterbi_pallas import viterbi_decode_pallas
-    from gr_ieee80211_tpu.gold import bits as GB
+    from gr_ieee80211.ops.viterbi_gpu import viterbi_decode
+    from gr_ieee80211.gold import bits as GB
     rng = np.random.default_rng(5)
     B_, T_ = 4, 2200
     msg = rng.integers(0, 2, (B_, T_)).astype(np.uint8)
@@ -143,43 +143,26 @@ def test_viterbi_segmented_matches_monolithic():
         enc = GB.bcc_encode(msg[i]).astype(np.float32)
         llr[i] = (2 * enc - 1).reshape(-1, 2)
     llr += rng.normal(size=llr.shape).astype(np.float32) * 0.4
-    mono = np.asarray(viterbi_decode_pallas(jnp.asarray(llr)))
-    seg = np.asarray(viterbi_decode_pallas(jnp.asarray(llr), segmented=True))
+    mono = np.asarray(viterbi_decode(jnp.asarray(llr)))
+    seg = np.asarray(viterbi_decode(jnp.asarray(llr), segmented=True))
     assert np.array_equal(mono, seg)
     assert np.array_equal(mono, msg)
 
 
-def test_derotate_pallas_matches_factored():
-    """The single-pass Pallas derotation == the XLA factored-phasor
-    oracle to f32 rounding, at odd widths/batches and large CFO."""
-    import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops import frontend as FE
-    from gr_ieee80211_tpu.ops.cplx import CF
-    rng = np.random.default_rng(8)
-    for B_, n_ in ((3, 331), (130, 1984), (8, 4500)):
-        x = rng.normal(size=(B_, n_)) + 1j * rng.normal(size=(B_, n_))
-        cfo = rng.normal(size=B_).astype(np.float32) * 8e4
-        wins = CF(jnp.asarray(x.real, jnp.float32),
-                  jnp.asarray(x.imag, jnp.float32))
-        a = FE.derotate_pallas(wins, jnp.asarray(cfo), n_)
-        b = FE._derotate_factored(wins, jnp.asarray(cfo), n_)
-        err = max(float(np.abs(np.asarray(a.re) - np.asarray(b.re)).max()),
-                  float(np.abs(np.asarray(a.im) - np.asarray(b.im)).max()))
-        assert err < 2e-4, (B_, n_, err)
-
-
 def test_segmented_pays_policy():
-    """Measured round-5 policy: only ultra-narrow batches on ultra-long
-    trellises go segmented; the adaptive lane tile makes narrow-lane
-    monolithic sweeps proportionally cheap everywhere else (timings in
-    the segmented_pays docstring)."""
-    from gr_ieee80211_tpu.ops.viterbi_pallas import segmented_pays
+    """Measured H100 policy: trellises of at least two target segments
+    decode segmented at every measured batch; shorter ones, where a
+    segment is as long as the trellis, stay monolithic (timings in the
+    segmented_pays docstring)."""
+    from gr_ieee80211.ops.viterbi_gpu import segmented_pays
     assert segmented_pays(128, 32318)
-    assert not segmented_pays(128, 4420)
-    assert not segmented_pays(512, 4420)
-    assert not segmented_pays(2048, 4420)
-    assert not segmented_pays(4096, 4420)
-    assert not segmented_pays(256, 32318)
+    assert segmented_pays(128, 2288)
+    assert segmented_pays(128, 4420)
+    assert segmented_pays(512, 4420)
+    assert segmented_pays(2048, 4420)
+    assert segmented_pays(4096, 4420)
+    assert not segmented_pays(128, 1040)
+    assert not segmented_pays(4096, 1040)
 
 
 def test_fused_sync_cfo_matches_two_step():
@@ -188,10 +171,10 @@ def test_fused_sync_cfo_matches_two_step():
     float rounding (the round-3 fusion must not change sync behavior)."""
     import jax
     import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops import frontend as FE
-    from gr_ieee80211_tpu.ops.cplx import CF, from_host
-    from gr_ieee80211_tpu.gold import tx as gtx2, mac as gmac, channel
-    from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
+    from gr_ieee80211.ops import frontend as FE
+    from gr_ieee80211.ops.cplx import CF, from_host
+    from gr_ieee80211.gold import tx as gtx2, mac as gmac, channel
+    from gr_ieee80211.spec.params import PhyConfig, Fmt
     rng = np.random.default_rng(17)
     mpdu = gmac.qos_data_frame(b"y" * 60, "02:00:00:00:00:01",
                                "02:00:00:00:00:02", "02:00:00:00:00:01", 1)
@@ -228,26 +211,26 @@ def test_fused_sync_cfo_matches_two_step():
 
 def test_viterbi_segmented_geometry_traces():
     """Every fallback tier x realistic trellis length must trace: the
-    segment windows are whole 512-float rows (K a multiple of 256 steps)
-    and the expanded lane batch pads to a supported tile count."""
+    segment windows are whole 512-float rows (K a multiple of 256 steps)."""
     import jax
     import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops.viterbi_pallas import (
-        viterbi_decode_pallas, _seg_geometry, SEG_W)
+    from gr_ieee80211.ops.viterbi_gpu import (
+        viterbi_decode, _seg_geometry, SEG_W)
     for B_ in (128, 256, 512, 2048):
         for T_ in (1040, 2288, 4420, 5304, 33000):
             S, K = _seg_geometry(B_, T_)
             assert K % (2 * SEG_W) == 0 and S * K >= T_, (B_, T_, S, K)
             jax.eval_shape(
-                lambda x: viterbi_decode_pallas(x, segmented=True),
+                lambda x: viterbi_decode(x, segmented=True),
                 jax.ShapeDtypeStruct((B_, T_, 2), jnp.float32))
 
 
 def test_viterbi_pallas_adaptive_lane_tile():
-    """Sub-tile batches decode at their own lane width (no 1024-pad)."""
+    """Odd batches and trellis lengths decode exactly through the
+    platform's decoder (row and step padding are invisible)."""
     import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops.viterbi_pallas import viterbi_decode_pallas
-    from gr_ieee80211_tpu.gold import bits as GB
+    from gr_ieee80211.ops.viterbi_gpu import viterbi_decode
+    from gr_ieee80211.gold import bits as GB
     rng = np.random.default_rng(6)
     for B_, T_ in ((5, 200), (130, 100), (200, 391)):
         msg = rng.integers(0, 2, (B_, T_)).astype(np.uint8)
@@ -257,7 +240,7 @@ def test_viterbi_pallas_adaptive_lane_tile():
             enc = GB.bcc_encode(msg[i]).astype(np.float32)
             llr[i] = (2 * enc - 1).reshape(-1, 2)
         llr += rng.normal(size=llr.shape).astype(np.float32) * 0.3
-        out = np.asarray(viterbi_decode_pallas(jnp.asarray(llr)))
+        out = np.asarray(viterbi_decode(jnp.asarray(llr)))
         assert np.array_equal(out, msg), (B_, T_)
 
 
@@ -267,9 +250,9 @@ def test_dense_min_spacing_packets_all_detected():
     4096-sample compaction row then sees more raw edges than _COMPACT_K, so
     without pre-compaction cluster suppression real packet starts are
     silently dropped BEFORE dedup."""
-    from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
-    from gr_ieee80211_tpu.gold import tx as gtx, mac, channel
-    from gr_ieee80211_tpu.models.rx import RxEngine
+    from gr_ieee80211.spec.params import PhyConfig, Fmt
+    from gr_ieee80211.gold import tx as gtx, mac, channel
+    from gr_ieee80211.models.rx import RxEngine
     rng = np.random.default_rng(51)
     mpdu = mac.qos_data_frame(b"dense!" * 5, "02:00:00:00:00:01",
                               "02:00:00:00:00:02", "02:00:00:00:00:01", 1)
@@ -281,7 +264,7 @@ def test_dense_min_spacing_packets_all_detected():
     rms = np.sqrt(np.mean(np.abs(wave) ** 2))
     stream = channel.awgn(stream, rms / 10 ** (30 / 20), rng)
     eng = RxEngine(nrx=1)
-    from gr_ieee80211_tpu.ops.cplx import from_host
+    from gr_ieee80211.ops.cplx import from_host
     trigs = eng.detect(from_host(stream)[0])
     assert len(trigs) == n_pkts, len(trigs)
     res = [r for r in eng.process(stream) if r.ok and r.mpdus[0] == mpdu]
@@ -294,8 +277,8 @@ def test_blocked_gather_matches_numpy():
     starts near the stream tail (clip semantics only affect rows whose
     window overruns the stream, which callers valid-mask)."""
     import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops import frontend as FE
-    from gr_ieee80211_tpu.ops.cplx import CF
+    from gr_ieee80211.ops import frontend as FE
+    from gr_ieee80211.ops.cplx import CF
     rng = np.random.default_rng(9)
     N, Bw = 100000, 64
     x = rng.normal(size=N).astype(np.float32)
@@ -311,24 +294,3 @@ def test_blocked_gather_matches_numpy():
         got16 = FE.gather_windows_bf16(cf, jnp.asarray(starts), n)
         err = np.abs(np.asarray(got16.re) - exp)
         assert err.max() < 0.02, (n, err.max())   # bf16 quantization only
-
-
-def test_viterbi_packed_planes_match_unpacked():
-    """4-steps-per-int8 packed decision planes reproduce the unpacked
-    ACS+traceback bit-for-bit (the round-5 store/read-traffic
-    experiment, ops/viterbi_pallas.acs_sweep_packed)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from gr_ieee80211_tpu.ops.viterbi_pallas import (
-        acs_sweep, traceback_sweep, acs_sweep_packed,
-        traceback_sweep_packed)
-    rng = np.random.default_rng(11)
-    T_, B_ = 256, 128
-    l0 = jnp.asarray(rng.normal(size=(T_, B_)).astype(np.float32))
-    l1 = jnp.asarray(rng.normal(size=(T_, B_)).astype(np.float32))
-    dl, dh, pm = acs_sweep(l0, l1, interpret=True)
-    dlp, dhp, pmp = acs_sweep_packed(l0, l1, interpret=True)
-    assert np.allclose(np.asarray(pm), np.asarray(pmp))
-    bits = traceback_sweep(dl, dh, interpret=True)
-    bitsp = traceback_sweep_packed(dlp, dhp, interpret=True)
-    assert np.array_equal(np.asarray(bits), np.asarray(bitsp))

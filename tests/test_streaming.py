@@ -7,12 +7,12 @@ import time
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.runtime import native as NAT
-from gr_ieee80211_tpu.runtime.udp_phy import (
+from gr_ieee80211.runtime import native as NAT
+from gr_ieee80211.runtime.udp_phy import (
     PhyTxServer, PhyRxReporter, parse_phy_to_mac)
-from gr_ieee80211_tpu.runtime.streaming import RxStreamer, TxStreamer
-from gr_ieee80211_tpu.models.rx import RxEngine
-from gr_ieee80211_tpu.gold import mac
+from gr_ieee80211.runtime.streaming import RxStreamer, TxStreamer
+from gr_ieee80211.models.rx import RxEngine
+from gr_ieee80211.gold import mac
 
 
 pytestmark = pytest.mark.skipif(not NAT.available(),
@@ -101,8 +101,8 @@ def test_full_stream_loopback_mac_to_mac():
 def test_block_boundary_packet_owned_by_trigger():
     """A packet triggering just before the block edge (LTF past it) must be
     decoded exactly once — ownership follows the trigger, not the LTF."""
-    from gr_ieee80211_tpu.gold import tx, channel
-    from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt
+    from gr_ieee80211.gold import tx, channel
+    from gr_ieee80211.spec.params import PhyConfig, Fmt
 
     rng = np.random.default_rng(3)
     mpdu = mac.qos_data_frame(b"edge case " * 6, "02:00:00:00:00:01",
@@ -139,7 +139,7 @@ def test_tx_streamer_timed_burst_placement(tmp_path):
     """pad2 tx_time contract: timed bursts land at sample-accurate
     scheduled positions (stream position + lead) with explicit
     inter-burst silence (lib/pad2_impl.cc:154-160)."""
-    from gr_ieee80211_tpu.utils.io import read_cf32
+    from gr_ieee80211.utils.io import read_cf32
     rng = np.random.default_rng(5)
     p = str(tmp_path / "timed.bin")
     sink = TxStreamer(path=p, timed=True, lead=1200)

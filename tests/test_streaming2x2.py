@@ -8,12 +8,12 @@ import time
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.runtime import native as NAT
-from gr_ieee80211_tpu.runtime.udp_phy import (
+from gr_ieee80211.runtime import native as NAT
+from gr_ieee80211.runtime.udp_phy import (
     PhyTxServer, PhyRxReporter, parse_phy_to_mac)
-from gr_ieee80211_tpu.runtime.streaming import RxStreamer, TxStreamer
-from gr_ieee80211_tpu.models.rx import RxEngine
-from gr_ieee80211_tpu.gold import mac
+from gr_ieee80211.runtime.streaming import RxStreamer, TxStreamer
+from gr_ieee80211.models.rx import RxEngine
+from gr_ieee80211.gold import mac
 
 
 pytestmark = pytest.mark.skipif(not NAT.available(),

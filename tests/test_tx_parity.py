@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from gr_ieee80211_tpu.spec.params import PhyConfig, Fmt, MuConfig
-from gr_ieee80211_tpu.gold import tx as gtx
+from gr_ieee80211.spec.params import PhyConfig, Fmt, MuConfig
+from gr_ieee80211.gold import tx as gtx
 
 TOL = 2e-7  # golden vectors stored as complex64
 

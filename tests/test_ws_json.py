@@ -2,7 +2,7 @@
 import json
 import sys
 
-sys.path.insert(0, "tools_tpu")
+sys.path.insert(0, "tools")
 
 from perf_ws_json import parse_ws_json, per_table
 
